@@ -1,8 +1,8 @@
 """int8 fidelity error analysis at scale (VERDICT round-4 item 6).
 
-Question: why does int8 top-10 agreement drift with pool size
-(0.875 @ 262k -> 0.825 @ 1M, BENCH_r04) while top-10-in-top-50 recall
-stays 1.0 — and does it plateau or keep degrading toward 10M?
+Question: how does int8 top-10 agreement drift with pool size while
+top-10-in-top-50 recall stays high — and does it plateau or keep
+degrading toward 10M?
 
 Method (on-chip, same synthetic family as bench.py's pool suite):
 
@@ -20,8 +20,8 @@ Method (on-chip, same synthetic family as bench.py's pool suite):
    S must exceed the worst displacement.  The artifact reports the
    displacement distribution per pool size and a fitted S(N) rule.
 
-Writes docs/runs/int8_error_analysis/summary.json; the PERF.md round-5
-section carries the table.  Run: python examples/int8_error_analysis.py
+Writes chiprun_out/int8_error_analysis/summary.json.
+Run on the GPU: python examples/int8_error_analysis.py
 """
 
 import json
@@ -151,7 +151,7 @@ def main():
         "S_10m_pred": int(max(50, 4 * d1m * (10 ** b))),
     }
     out["wall_s"] = round(time.time() - t0, 1)
-    dst = os.path.join(os.path.dirname(__file__), "..", "docs", "runs",
+    dst = os.path.join(os.path.dirname(__file__), "..", "chiprun_out",
                        "int8_error_analysis")
     os.makedirs(dst, exist_ok=True)
     with open(os.path.join(dst, "summary.json"), "w") as f:

@@ -19,10 +19,10 @@ non-trivial plantable signal, then trains the published V4 recipe
   parity the reference gets by shelling out to trec_eval-8.0,
   do_trec_qa_clean.py:650)
 
-Writes docs/runs-style artifacts (summary.json, history.json, truth/result,
-curve.png, README.md) under --out.
+Writes run artifacts (summary.json, history.json, truth/result, curve.png,
+README.md) under --out.
 
-    python examples/recipe_scale_rehearsal.py --out docs/runs/recipe_scale_v4
+    python examples/recipe_scale_rehearsal.py --out chiprun_out/recipe_scale_v4
 """
 
 import argparse
@@ -79,8 +79,8 @@ def main():
                          "walks all max_iter steps")
     args = ap.parse_args()
 
+    import jax
     if args.cpu:
-        import jax
         jax.config.update("jax_platforms", "cpu")
     from mms_answer_selection_tpu.utils.compile_cache import (
         enable_compilation_cache)
@@ -208,7 +208,8 @@ def main():
         "early_stop_patience": args.early_stop_patience,
         "last_eval_step": int(hist["steps"][-1]) if hist.get("steps")
         else 0,
-        "backend": "cpu" if args.cpu else "tpu",
+        "backend": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
         "wall_s": round(time.time() - t0, 1),
     }
     with open(os.path.join(args.out, "summary.json"), "w") as f:

@@ -1,10 +1,9 @@
 """BASELINE configs[3]: brute-force learned-metric retrieval over a 1M
 synthetic candidate pool.
 
-Single chip: the int8-quantized pool (6.4 GB) + engine-level chunked
-scoring run the whole config on ONE v5e (measured 103.7M pairs/s).
-On a mesh, pass a Mesh whose last axis shards the pool (per-shard top-k +
-global merge ride the ICI).
+Single device: the int8-quantized pool + engine-level chunked scoring run
+the whole config on one GPU.  On a mesh, pass a Mesh whose last axis
+shards the pool (per-shard top-k + global merge over the interconnect).
 
     python examples/retrieval_1m.py [--pool 1048576] [--queries 128]
 """

@@ -23,5 +23,5 @@ end
 
 function CHECK_FILE_EXIST_REMOTE(~)
 % the bridge daemon checks file existence on ITS host; nothing to do
-% client-side (the file lives next to the TPU, not next to MATLAB)
+% client-side (the file lives next to the accelerator, not next to MATLAB)
 end

@@ -2,12 +2,12 @@ function varargout = caffe_(cmd, varargin)
 % caffe_  RPC twin of the reference's MEX entry point.
 %
 % The reference binds MATLAB via a compiled MEX plugin
-% (matlab/+caffe/private/caffe_.cpp).  This rebuild targets TPU hosts,
-% where MATLAB does not run and the runtime is JAX — so the same
+% (matlab/+caffe/private/caffe_.cpp).  This rebuild runs on
+% accelerator hosts, where the runtime is JAX, not MATLAB — so the same
 % command surface is served by a bridge daemon instead:
 %
-%   (TPU host)  python -m mms_answer_selection_tpu.cli matbridge --port 8491
-%   (MATLAB)    caffe_('connect', 'tpu-host', 8491);
+%   (GPU host)  python -m mms_answer_selection_tpu.cli matbridge --port 8491
+%   (MATLAB)    caffe_('connect', 'gpu-host', 8491);
 %               net = caffe.Net('deploy.prototxt', 'test');
 %
 % Protocol: one JSON object per line over TCP.  Request

@@ -1,14 +1,14 @@
 function [scores, maxlabel] = classification_demo(im, use_gpu)
 % [scores, maxlabel] = classification_demo(im, use_gpu)
 %
-% Image classification through the TPU bridge — the workflow of the
+% Image classification through the accelerator bridge — the workflow of the
 % reference's matlab/demo (CaffeNet deploy + ilsvrc mean + 10-crop
 % oversampling), driven over RPC instead of an in-process MEX.
 %
-% Prerequisites, on the machine holding the model files + TPU:
+% Prerequisites, on the machine holding the model files + GPU:
 %   python -m mms_answer_selection_tpu.cli matbridge --port 8491
 % and in this MATLAB session:
-%   caffe.connect('tpu-host', 8491);
+%   caffe.connect('gpu-host', 8491);
 %
 % im: H x W x 3 uint8 RGB image (e.g. from imread).
 % Returns the 1000-way softmax scores averaged over 10 crops and the
@@ -19,7 +19,7 @@ net_model = [model_dir 'deploy.prototxt'];
 net_weights = [model_dir 'bvlc_reference_caffenet.caffemodel'];
 
 if exist('use_gpu', 'var') && use_gpu
-  caffe.set_mode_gpu();   % accelerator mode (the TPU, bridge-side)
+  caffe.set_mode_gpu();   % accelerator mode (the GPU, bridge-side)
 else
   caffe.set_mode_cpu();
 end

@@ -1,11 +1,11 @@
-"""TPU-native multi-modal similarity (MMS) answer-selection framework.
+"""JAX-native multi-modal similarity (MMS) answer-selection framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability set of the
 ``lxmeng/mms_answer_selection`` Caffe fork (reference layout documented in
 SURVEY.md).  Nothing here is a port of Caffe: tensors are JAX arrays, the
 graph runtime is ``jax.jit``, multi-device execution is a
-``jax.sharding.Mesh``, and the hot bilinear Q×A metric kernel is a fused
-Pallas TPU kernel with an analytic custom-VJP backward.
+``jax.sharding.Mesh``, and learned-metric retrieval scores a query against
+every candidate with fused Pallas MaxSim kernels (Triton on the GPU).
 
 Subpackages
 -----------

@@ -2,7 +2,7 @@
 
 The reference hides IO latency with a background thread + BlockingQueue per
 data layer (base_data_layer.cpp:39-124) and shards rows round-robin across
-solver threads (data_reader.cpp:79-98).  On TPU the equivalents are:
+solver threads (data_reader.cpp:79-98).  In JAX the equivalents are:
 
 * host arrays are sliced per step and shipped with a *double-buffered*
   ``jax.device_put`` (the next batch transfers while the current step runs
@@ -71,7 +71,7 @@ class BatchIterator:
         idx = np.arange(self.ds.size)
         if self.shuffle:
             # same threefry chain, forced onto the CPU backend: shuffling
-            # host indices must not pay a remote-TPU dispatch (and the
+            # host indices must not pay an accelerator dispatch (and the
             # first permutation of each dataset size a device compile)
             with jax.default_device(jax.local_devices(backend="cpu")[0]):
                 key = jax.random.fold_in(jax.random.PRNGKey(self.seed),

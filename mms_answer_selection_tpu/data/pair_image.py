@@ -10,10 +10,10 @@ mean-subtracted / mirrored (the DataTransformer subset the layer uses),
 shuffled per epoch with rand_skip.  The reference stacks the pair along the
 channel axis; this pipeline keeps them as two NHWC tensors (the siamese
 model shares weights anyway, and separate tensors let the encoder batch
-img1 ⧺ img2 in one pass -- better MXU utilization than doubling channels).
+img1 ⧺ img2 in one pass -- larger matrix products than doubling channels).
 
 Image IO: PIL when available; ``.npy`` arrays always (tests and synthetic
-pools use npy -- no image codec dependency on the TPU host).
+pools use npy -- no image codec dependency on the accelerator host).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Reproduces the semantics of the reference driver's ``make_data``
 (do_trec_qa_clean.py:75-320) -- the parsing rules, vocab construction,
 IDF/overlap features, and center-padding -- while replacing its HDF5-chunk
-output with npz arrays (the TPU input path wants contiguous host arrays it
+output with npz arrays (the device input path wants contiguous host arrays it
 can slice and ship, not a chunked-file emulation).
 
 Semantics checklist (all cited):

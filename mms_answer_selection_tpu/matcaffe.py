@@ -5,8 +5,8 @@ The reference binds MATLAB through a MEX plugin
 point dispatching ~29 commands over registries of live Solver/Net/
 Layer/Blob pointers, with a process-wide ``init_key`` invalidating
 handles on reset (caffe_.cpp:44-47,131-147).  A MEX plugin cannot exist
-here — MATLAB does not run on TPU hosts, and the compute path is JAX,
-not a C++ object graph — so the TPU-native equivalent splits the same
+here — MATLAB does not run inside a JAX process, and the compute path is
+JAX, not a C++ object graph — so the JAX-native equivalent splits the same
 surface in two:
 
 * :class:`MatBridge` (this module): the full command dispatch,
@@ -15,7 +15,7 @@ surface in two:
   it directly: ``caffe_('get_net', file, 'train')``.
 * :func:`serve_matcaffe`: a tiny line-delimited-JSON TCP daemon
   exposing the dispatch, so the shipped ``matlab/+caffe`` package (a
-  pure-``.m`` client, no MEX build) can drive a remote TPU host from
+  pure-``.m`` client, no MEX build) can drive a remote GPU host from
   any MATLAB/Octave session.  The daemon replaces the MEX boundary;
   the ``.m`` classes above it keep the reference's public API
   (Net/Blob/Layer/Solver/io, matlab/+caffe/Net.m etc.).
@@ -24,7 +24,7 @@ Data-layout contract (caffe_.cpp:7-10): matcaffe arrays are single
 precision with dimensions REVERSED from caffe's — a caffe (num,
 channels, height, width) blob is a matlab (width, height, channels,
 num) array, width fastest.  Since this framework's internal image
-layout is NHWC (TPU-native), 4-D blobs additionally permute NHWC <->
+layout is NHWC, 4-D blobs additionally permute NHWC <->
 NCHW at this boundary so MATLAB sees exactly the reference's axes.
 
 Handles are ``{"ptr": int, "init_key": float}`` structs, validated
@@ -182,14 +182,14 @@ class _ParamBlob:
         return g
 
     def set_diff(self, caffe_arr):
-        raise ValueError("matcaffe-tpu: parameter diffs are produced by "
+        raise ValueError("matcaffe: parameter diffs are produced by "
                          "net_backward; writing them is not supported")
 
     def shape_caffe(self):
         return self.get_data().shape
 
     def reshape(self, caffe_shape):
-        raise ValueError("matcaffe-tpu: parameter blobs cannot be "
+        raise ValueError("matcaffe: parameter blobs cannot be "
                          "reshaped (their shape is the layer's)")
 
 
@@ -388,7 +388,7 @@ class _MatNet:
     def backward_prefilled(self):
         if self._is_view:
             raise ValueError(
-                "matcaffe-tpu: net_backward on a solver-owned net is not "
+                "matcaffe: net_backward on a solver-owned net is not "
                 "supported — the solver's fused step computes gradients; "
                 "use a stand-alone Net for explicit backward")
         import jax.numpy as jnp

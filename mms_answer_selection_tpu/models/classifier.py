@@ -5,7 +5,7 @@ class prediction by scaling, center-cropping, or oversampling — the
 reference's demo application surface (classify.py drives it).
 
 Layout note: the reference preprocesses to caffe's NCHW; this
-framework's nets run NHWC (the TPU-natural layout).  The
+framework's nets run NHWC (XLA's natural convolution layout).  The
 :class:`~..utils.io.Transformer` here is configured EXACTLY like the
 reference's (transpose to CHW, channel swap, raw scale, mean, input
 scale — so mean files and preprocessing recipes port unchanged), and the

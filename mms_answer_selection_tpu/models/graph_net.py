@@ -9,7 +9,7 @@ The typed-config model families (``models/mms_qa.py`` etc.) cover the
 recipes; this module covers the *generality*: a prototxt outside any
 known family still runs.
 
-TPU-first design, not a Net translation:
+JAX-first design, not a Net translation:
 
 * A GraphNet is a pure function factory.  ``init`` walks the layer list
   once with example inputs, creating parameters layer-by-layer (shape
@@ -21,7 +21,7 @@ TPU-first design, not a Net translation:
 * Backward is ``jax.grad`` of the weighted loss sum — InsertSplits
   (net.cpp:InsertSplits) is autodiff gradient accumulation; there is no
   split bookkeeping to do.
-* Layout is NHWC end-to-end (TPU-native).  Caffe axis arguments are
+* Layout is NHWC end-to-end.  Caffe axis arguments are
   written against NCHW; for 4-D blobs GraphNet maps axis 1 -> -1 (and
   2,3 -> 1,2) so ``Concat { axis: 1 }`` concatenates channels here too.
   Non-4-D blobs use axes verbatim.  ``InnerProduct``/``Flatten``
@@ -692,7 +692,7 @@ def _python(ctx, node, bottoms):
     ``m.f`` and applies it to the bottoms.  The target must be
     jax-traceable (it runs inside jit): either a function
     ``f(*bottoms) -> top(s)`` or a class whose instance is callable /
-    has ``forward`` — the TPU-native reading of the reference's
+    has ``forward`` — the JAX-native reading of the reference's
     setup/forward protocol (state lives in closures or params, not
     mutable self).  ``param_str`` is passed as a keyword when the
     callable accepts it."""
@@ -1392,7 +1392,7 @@ def _filter(ctx, node, bottoms):
 
 @_register("Im2col")
 def _im2col(ctx, node, bottoms):
-    """im2col_layer.cpp exposed as a layer: patch extraction.  On TPU this
+    """im2col_layer.cpp exposed as a layer: patch extraction.  Here this
     exists only for graph compatibility — convolution never goes through
     it (ops/conv.py docstring)."""
     p = _p(node, "convolution_param")

@@ -13,7 +13,8 @@ got from named ParamSpecs (``w2v-weights`` shared across the two Embed
 layers, do_trec_qa_clean.py:461-466) falls out naturally from using one
 params entry twice.
 
-Layout: NHWC end-to-end (TPU-native), so the sim map is (N, W1, W2, M)
+Layout: NHWC end-to-end (XLA's preferred conv layout), so the sim map is
+(N, W1, W2, M)
 rather than the reference's (N, M, W1, W2); values are identical.
 
 Functional API:

@@ -5,7 +5,7 @@ input (both images), a conv net scoring each, PairRankLoss on the two
 scores + label, RankAccuracy for eval (SURVEY.md §2.1).  Here it is a
 first-class model: a shared conv encoder (conv -> BN -> max-pool -> tanh
 blocks, same block vocabulary as the QA model) runs over img1 ⧺ img2
-concatenated on the BATCH axis (one big MXU pass instead of the
+concatenated on the BATCH axis (one big conv pass instead of the
 reference's channel-stacking), a linear head produces one scalar score per
 image, and training uses the margin-rank + similarity-hinge loss
 (pair_rank_loss_layer.cpp:26-52).

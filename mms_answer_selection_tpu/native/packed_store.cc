@@ -1,12 +1,12 @@
 // Packed-record store: the native data-pipeline runtime.
 //
-// TPU-native replacement for the reference's C++ data machinery --
+// Native replacement for the reference's C++ data machinery --
 // DataReader's one-reader-per-source thread + per-solver BlockingQueues
 // (src/caffe/data_reader.cpp), BasePrefetchingDataLayer's background batch
 // thread (src/caffe/layers/base_data_layer.cpp:39-124), the
 // BlockingQueue itself (src/caffe/util/blocking_queue.cpp), and the
 // LMDB/LevelDB cursor layer (src/caffe/util/db_lmdb.cpp) -- redesigned for
-// feeding a TPU host: instead of per-datum queues and protobuf decoding,
+// feeding an accelerator host: instead of per-datum queues and protobuf decoding,
 // a memory-mapped columnar file is gathered into contiguous batch buffers
 // by a thread pool, with an N-deep prefetch ring so the host->device
 // transfer of batch k+1 overlaps step k.

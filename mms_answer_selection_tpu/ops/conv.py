@@ -1,9 +1,10 @@
-"""2-D convolution in TPU-friendly NHWC layout.
+"""2-D convolution in NHWC layout.
 
 The reference builds conv from im2col + GEMM in NCHW
-(src/caffe/layers/base_conv_layer.cpp, util/im2col.cpp); on TPU that whole
-machinery is one XLA op -- ``lax.conv_general_dilated`` lowers directly onto
-the MXU with fused layout handling, so there is deliberately no im2col here.
+(src/caffe/layers/base_conv_layer.cpp, util/im2col.cpp); here that whole
+machinery is one XLA op -- ``lax.conv_general_dilated``, which XLA hands to
+cuDNN on the GPU with fused layout handling, so there is deliberately no
+im2col here.
 
 Initialization matches the recipe: xavier weights with fan_in = Cin*kh*kw
 (filler.hpp XavierFiller over a (Cout, Cin, kh, kw) blob), constant-0 bias

@@ -2,7 +2,7 @@
 
 The reference implements recurrence by unrolling an inner Net through time
 (src/caffe/layers/recurrent_layer.cpp builds T copies of a step subgraph;
-lstm_layer.cpp / rnn_layer.cpp fill in the step).  On TPU the idiomatic
+lstm_layer.cpp / rnn_layer.cpp fill in the step).  In JAX the idiomatic
 form is ``jax.lax.scan`` over a single step function -- one compiled step
 body, sequential execution, no T-times graph blowup.
 

@@ -13,14 +13,15 @@ Reference semantics (all cited against /root/reference):
         out[n, m, i, j] = q_i^T W_m a_j (+ bias[m, i, j])
     with M = ``mesure_count`` learned (D, D) matrices.
 
-  Layout note: the reference emits NCHW (N, M|1, W1, W2); this framework is
-  TPU-native and uses NHWC throughout, so these functions return
-  (N, W1, W2, M|1).  The values are identical.
+  Layout note: the reference emits NCHW (N, M|1, W1, W2); this framework
+  uses NHWC throughout, so these functions return (N, W1, W2, M|1).  The
+  values are identical.
 
   The reference's backward is a hand-written 6-GEMM loop per (sample,
   measure) (cpp:280-305) that falls back to CPU on GPU builds (.cu:187-189).
-  Here the einsum formulation lets XLA batch all of it onto the MXU, and the
-  flagship fused Pallas kernel lives in ``sim_cross_pallas.py``.
+  Here the einsum formulation lets XLA batch all of it into a few large
+  matrix products, and the fused retrieval kernels live in
+  ``sim_cross_pallas.py``.
 
 * ``sim_matrix`` -- the SimMatrix layer (src/caffe/layers/sim_matrix_layer
   .cpp:52-65): sentence-level bilinear score s_n = x_n^T M y_n.
@@ -36,9 +37,9 @@ import jax
 import jax.numpy as jnp
 
 # f32 parity with the reference's cBLAS/cuBLAS GEMMs requires full-precision
-# accumulation; DEFAULT would allow bf16 passes on TPU.  Callers on the
-# serving fast path pass bf16 *inputs* instead, which keeps the MXU fast
-# without silently degrading f32 training.
+# products; DEFAULT would allow TF32 on the GPU.  Callers on the serving fast
+# path pass bf16 *inputs* instead, which keeps the tensor cores fast without
+# silently degrading f32 training.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -82,7 +83,7 @@ def sim_cross_bilinear(q, a, w, bias=None):
 
     The reference computes this as 2 GEMMs per (n, m) in a Python-visible
     loop and accumulates the backward with 6 more (cpp:282-300); a single
-    einsum lets XLA emit batched MXU matmuls for forward and backward alike.
+    einsum lets XLA emit batched matmuls for forward and backward alike.
     """
     out = jnp.einsum("nid,mde,nje->nijm", q, w, a, precision=_PREC)
     if bias is not None:

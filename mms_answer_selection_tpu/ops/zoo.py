@@ -1,6 +1,6 @@
 """Stock layer zoo: the reference's generic layer vocabulary as jnp ops.
 
-Caffe ships ~70 generic layers (SURVEY.md §2.2); on TPU most are single
+Caffe ships ~70 generic layers (SURVEY.md §2.2); in JAX most are single
 fused XLA expressions, not framework components.  This module pins down the
 ones with nontrivial *semantics* (exact parameterizations cited per
 function) so recipes built from the reference's vocabulary translate
@@ -155,7 +155,7 @@ def deconv2d(x, weight, bias=None, *, stride: int = 1, pad: int = 0,
     reference .caffemodel deconv blob drops in unchanged).  Expressed as
     one ``conv_general_dilated`` with lhs_dilation=stride (fractional
     stride) and the spatially-flipped, IO-swapped kernel -- XLA lowers it
-    onto the MXU like any conv; no col2im machinery."""
+    like any conv; no col2im machinery."""
     cin, og, kh, kw = weight.shape
     if x.shape[-1] != cin:
         raise ValueError(f"x channels {x.shape[-1]} != weight Cin {cin}")

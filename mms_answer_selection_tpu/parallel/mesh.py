@@ -3,9 +3,9 @@
 The reference's entire distributed backend is single-node tree
 data-parallelism over CUDA P2P (src/caffe/parallel.cpp:201-437: GPUParams
 flat buffers, DevicePair board-aware pairing, BlockingQueue handshakes,
-broadcast-down / reduce-up).  The TPU-native replacement is declarative:
+broadcast-down / reduce-up).  The JAX-native replacement is declarative:
 
-* a ``jax.sharding.Mesh`` over the chips (ICI topology handled by XLA),
+* a ``jax.sharding.Mesh`` over the devices (interconnect handled by XLA),
 * a PartitionSpec per array, and
 * jit, which inserts the bandwidth-optimal all-reduce for gradients --
   no hand-rolled tree, no queues, no device pairing.

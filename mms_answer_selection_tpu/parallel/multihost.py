@@ -1,9 +1,9 @@
 """Multi-host (DCN) data parallelism wiring.
 
 The reference has no multi-node story at all (SURVEY.md §2.3: single-node
-CUDA-P2P only).  This module adds the TPU-native one: every host runs the
+CUDA-P2P only).  This module adds the JAX-native one: every host runs the
 same program, ``jax.distributed.initialize`` wires the DCN control plane,
-the global mesh spans all chips, and each host feeds only its local shard
+the global mesh spans all devices, and each host feeds only its local shard
 of every batch (``host_shard`` = the DataReader round-robin of
 data_reader.cpp:79-98 done across processes).
 
@@ -21,8 +21,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None):
-    """jax.distributed.initialize passthrough (no-op when single-process;
-    TPU pods auto-discover all three arguments from the environment).
+    """jax.distributed.initialize passthrough (no-op when single-process).
+    Without a cluster environment that JAX recognizes, pass all three
+    arguments, e.g. ``coordinator_address="localhost:<port>"``.
 
     MUST run before any backend-initializing jax call: checking
     ``jax.process_count()`` here would itself initialize the local backend
@@ -58,8 +59,9 @@ def host_shard() -> tuple[int, int]:
 
 
 def global_mesh(tp: int = 1) -> Mesh:
-    """dp x tp mesh over ALL processes' devices (dp spans DCN+ICI; tp must
-    stay within a host's ICI domain for bandwidth, so tp <= local chips)."""
+    """dp x tp mesh over ALL processes' devices (dp spans hosts; tp must
+    stay within a host's device interconnect for bandwidth, so tp <= local
+    devices)."""
     devices = np.asarray(jax.devices())
     n = devices.size
     if n % tp:

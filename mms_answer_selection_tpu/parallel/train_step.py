@@ -2,7 +2,7 @@
 
 One jitted XLA program per step: forward, backward, solver update, BN-state
 EMA -- with the batch sharded over 'dp' and the large tensors over 'tp'.
-XLA inserts the gradient all-reduce over ICI where the shardings demand it;
+XLA inserts the gradient all-reduce where the shardings demand it;
 this subsumes the reference's entire on_start/on_gradients_ready machinery
 (parallel.cpp:287-380) and its 1/N gradient scaling (the mean over the
 global batch is already the mean -- no post-hoc rescale).

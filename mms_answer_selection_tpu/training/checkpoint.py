@@ -6,13 +6,15 @@ SGDSolver::SnapshotSolverState*, sgd_solver.cpp:246-347) -- and restores by
 file extension (Solver::Restore, solver.cpp:470-481).  Here one checkpoint
 directory per step carries the full pytree bundle:
 
-    <dir>/qa_iter_<N>/ckpt.msgpack   params + bn state + opt state + rng
+    <dir>/qa_iter_<N>/ckpt.npz       params + bn state + opt state
     <dir>/qa_iter_<N>/meta.json      step, dev metrics, config digest
 
-Serialization is flax msgpack over the raw pytrees -- self-describing,
-compact, no pickle.  ``load_checkpoint`` restores by template (the
-name+shape-checked loading that CopyTrainedLayersFrom does by layer name,
-net.cpp:741-777, becomes structural pytree matching).
+``ckpt.npz`` holds one array per pytree leaf, keyed by the leaf's path
+("params/embed/w", "opt_state/0/accum_grad/..."; sequence entries and
+named-tuple fields by index or name) -- self-describing, no pickle, numpy
+only.  ``load_checkpoint`` restores by template (the name+shape-checked
+loading that CopyTrainedLayersFrom does by layer name, net.cpp:741-777,
+becomes structural pytree matching).
 """
 
 from __future__ import annotations
@@ -23,7 +25,36 @@ import re
 
 import jax
 import numpy as np
-from flax import serialization
+
+CKPT_FILE = "ckpt.npz"
+
+
+def _key_name(entry) -> str:
+    for attr in ("key", "idx", "name"):
+        if hasattr(entry, attr):
+            return str(getattr(entry, attr))
+    raise TypeError(f"unsupported pytree path entry {entry!r}")
+
+
+def _leaf_path(path) -> str:
+    names = [_key_name(e) for e in path]
+    for n in names:
+        if "/" in n:
+            raise ValueError(f"pytree key {n!r} contains '/'")
+    return "/".join(names)
+
+
+def _nest(flat: dict) -> dict:
+    """{"a/0/b": x} -> {"a": {"0": {"b": x}}} (sequences come back as
+    dicts keyed by their string index; copy_matching accepts both)."""
+    out: dict = {}
+    for key, value in flat.items():
+        node = out
+        *parents, last = key.split("/")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[last] = value
+    return out
 
 
 def save_checkpoint(directory: str, step: int, bundle, *, prefix: str = "qa",
@@ -31,13 +62,14 @@ def save_checkpoint(directory: str, step: int, bundle, *, prefix: str = "qa",
     """bundle: arbitrary pytree (params/state/opt_state/...).  Returns path."""
     path = os.path.join(directory, f"{prefix}_iter_{step}")
     os.makedirs(path, exist_ok=True)
-    host = jax.tree.map(np.asarray, jax.device_get(bundle))
+    leaves, _ = jax.tree_util.tree_flatten_with_path(jax.device_get(bundle))
+    host = {_leaf_path(p): np.asarray(v) for p, v in leaves}
     # temp-then-rename: a crash mid-write must not leave a truncated
-    # ckpt.msgpack that latest_checkpoint would pick for resume
-    tmp = os.path.join(path, ".ckpt.msgpack.tmp")
+    # checkpoint that latest_checkpoint would pick for resume
+    tmp = os.path.join(path, ".ckpt.tmp.npz")
     with open(tmp, "wb") as f:
-        f.write(serialization.msgpack_serialize(host))
-    os.replace(tmp, os.path.join(path, "ckpt.msgpack"))
+        np.savez(f, **host)
+    os.replace(tmp, os.path.join(path, CKPT_FILE))
     tmp_meta = os.path.join(path, ".meta.json.tmp")
     with open(tmp_meta, "w") as f:
         json.dump({"step": step, **(meta or {})}, f)
@@ -48,11 +80,25 @@ def save_checkpoint(directory: str, step: int, bundle, *, prefix: str = "qa",
 def load_checkpoint(path: str, template=None):
     """Returns (bundle, meta).  With ``template`` the bundle is restored into
     the template's pytree structure (shape-checked); without, raw nested
-    dicts/lists of numpy arrays are returned."""
-    with open(os.path.join(path, "ckpt.msgpack"), "rb") as f:
-        raw = serialization.msgpack_restore(f.read())
-    if template is not None:
-        raw = serialization.from_state_dict(template, raw)
+    dicts of numpy arrays are returned."""
+    with np.load(os.path.join(path, CKPT_FILE), allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    if template is None:
+        raw = _nest(flat)
+    else:
+        paths, treedef = jax.tree_util.tree_flatten_with_path(template)
+        leaves = []
+        for p, tpl in paths:
+            key = _leaf_path(p)
+            if key not in flat:
+                raise KeyError(f"checkpoint {path} has no leaf {key!r}")
+            arr = flat[key]
+            if tuple(arr.shape) != tuple(np.shape(tpl)):
+                raise ValueError(
+                    f"checkpoint leaf {key!r} has shape {arr.shape}, "
+                    f"template {np.shape(tpl)}")
+            leaves.append(arr)
+        raw = jax.tree_util.tree_unflatten(treedef, leaves)
     meta_path = os.path.join(path, "meta.json")
     meta = {}
     if os.path.exists(meta_path):
@@ -83,7 +129,7 @@ def copy_matching(template, loaded, *, path=""):
             src_seq = src if isinstance(src, (list, tuple, dict)) else ()
             out = []
             for i, v in enumerate(tpl):
-                if isinstance(src_seq, dict):  # msgpack stores lists as dicts
+                if isinstance(src_seq, dict):  # sequences load as dicts
                     sub = src_seq.get(str(i), src_seq.get(i))
                 else:
                     sub = src_seq[i] if i < len(src_seq) else None

@@ -12,7 +12,7 @@ The typed-config ``Trainer`` covers the fork's QA recipes; this module
 covers the *generality*: any prototxt a reference user has trains here
 with the same solver semantics.
 
-TPU-first design, not a Solver translation:
+JAX-first design, not a Solver translation:
 
 * The net is a ``GraphNet`` — the whole per-iteration computation
   (forward, ``jax.grad`` backward, the solver update, and ``iter_size``
@@ -49,7 +49,7 @@ from ..models.graph_net import DATA_TYPES, GraphNet
 from ..utils.prototxt import parse_prototxt, solver_config_from_prototxt
 from .optim import learning_rate, make_solver
 
-log = logging.getLogger("mms_tpu.graph_solver")
+log = logging.getLogger("mms.graph_solver")
 
 
 def _as_list(v):

@@ -4,7 +4,7 @@ Pure-pytree reimplementation of the reference's Solver machinery
 (src/caffe/solver.cpp + src/caffe/solvers/*.cpp) as one jittable update
 function.  The whole per-parameter loop of blobs the reference runs on the
 host becomes a handful of fused XLA element-wise passes over the parameter
-pytree -- the TPU-native equivalent of the reference's fused ``*_update_gpu``
+pytree -- the JAX-native equivalent of the reference's fused ``*_update_gpu``
 kernels (e.g. adadelta_update_gpu, solvers/adadelta_solver.cu).
 
 Semantics reproduced exactly, in the reference's order

@@ -8,7 +8,7 @@ serializes the closure of assigned tops into a ``NetParameter`` — the
 MMS driver's ``make_net`` is written entirely in it
 (examples/trec_qa_w2v_mms/do_trec_qa_clean.py:377-605).
 
-This is the TPU-native reading: instead of protobuf reflection the DSL
+This is the JAX-native reading: instead of protobuf reflection the DSL
 emits prototxt *text* (the interchange format everything here already
 speaks), which `GraphNet`/`GraphSolver` execute as jitted JAX and
 `parse_prototxt` round-trips.  Behavioral parity notes:

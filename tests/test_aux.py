@@ -169,12 +169,36 @@ class TestTiming:
 
 
 class TestCompileCache:
-    def test_enable_sets_config(self, tmp_path):
+    def test_enable_sets_config(self, tmp_path, monkeypatch):
         import jax
-        from mms_answer_selection_tpu.utils.compile_cache import (
-            enable_compilation_cache)
-        d = enable_compilation_cache(str(tmp_path / "xla"))
-        assert d == str(tmp_path / "xla")
-        assert jax.config.jax_compilation_cache_dir == d
-        # idempotent + default-path form never raises
-        assert enable_compilation_cache(str(tmp_path / "xla")) == d
+        from mms_answer_selection_tpu.utils import compile_cache
+        monkeypatch.delenv(compile_cache.ENV_VAR, raising=False)
+        monkeypatch.setattr(compile_cache, "DEFAULT_DIR",
+                            str(tmp_path / "xla"))
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            d = compile_cache.enable_compilation_cache()
+            assert d == str(tmp_path / "xla")
+            assert jax.config.jax_compilation_cache_dir == d
+            # idempotent
+            assert compile_cache.enable_compilation_cache() == d
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
+
+    def test_default_dir_is_inside_the_checkout(self):
+        import os
+        from mms_answer_selection_tpu.utils import compile_cache
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(
+            compile_cache.__file__)))
+        assert compile_cache.DEFAULT_DIR == os.path.join(
+            os.path.dirname(repo), ".jax_cache")
+
+    def test_env_var_wins_and_sets_no_dir(self, tmp_path, monkeypatch):
+        import jax
+        from mms_answer_selection_tpu.utils import compile_cache
+        before = jax.config.jax_compilation_cache_dir
+        monkeypatch.setenv(compile_cache.ENV_VAR, str(tmp_path / "env"))
+        assert compile_cache.enable_compilation_cache() == str(
+            tmp_path / "env")
+        assert jax.config.jax_compilation_cache_dir == before
+        assert not (tmp_path / "env").exists()

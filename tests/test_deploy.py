@@ -85,12 +85,12 @@ class TestRoundTrip:
             scorer(*_batch(3))
 
     def test_multi_platform_artifact_loads(self, model, tmp_path):
-        # tpu lowering is baked alongside cpu; the artifact must still
-        # deserialize and run on the cpu backend
+        # the cuda lowering is baked alongside cpu; the artifact must
+        # still deserialize and run on the cpu backend
         params, state = model
         path = str(tmp_path / "mp.mmsx")
         header = deploy.save_scorer(path, params, state, CFG)
-        assert header["platforms"] == ["cpu", "tpu"]
+        assert header["platforms"] == ["cpu", "cuda"]
         scorer = deploy.load_scorer(path)
         logits, _ = scorer(*_batch(2))
         assert np.isfinite(logits).all()

@@ -6,12 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 
 from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-    C_BLOCK,
-    W2P,
+    BLOCK_C,
+    bilinear_maxsim_scores,
     bilinear_maxsim_scores_int8,
     bilinear_maxsim_scores_reference,
     mask_out_candidates_int8,
+    pack_candidate_pool,
     pack_candidate_pool_int8,
+    project_queries,
     project_queries_int8,
     _quantize_rows,
 )
@@ -35,7 +37,7 @@ class TestQuantize:
 
 
 class TestInt8Scores:
-    def _setup(self, nq=3, c=2 * C_BLOCK, w1=5, w2=7, d=50, m=2):
+    def _setup(self, nq=3, c=2 * BLOCK_C, w1=5, w2=7, d=50, m=2):
         q = jnp.asarray(rng.normal(size=(nq, w1, d)).astype(np.float32))
         cand = jnp.asarray(rng.normal(size=(c, w2, d)).astype(np.float32))
         w = jnp.asarray(rng.normal(size=(m, d, d)).astype(np.float32) * 0.1)
@@ -52,7 +54,7 @@ class TestInt8Scores:
         np.testing.assert_allclose(out, ref, atol=0.05 * scale)
 
     def test_topk_recall_vs_f32(self):
-        q, cand, w = self._setup(nq=4, c=4 * C_BLOCK)
+        q, cand, w = self._setup(nq=4, c=4 * BLOCK_C)
         ref = np.asarray(bilinear_maxsim_scores_reference(q, cand, w))
         qw, qs = project_queries_int8(q, w)
         pool, aux = pack_candidate_pool_int8(cand)
@@ -67,7 +69,7 @@ class TestInt8Scores:
     def test_padding_mask(self):
         # all-negative sims: padded zero rows must not win the max
         q = jnp.ones((1, 2, 50), jnp.float32)
-        cand = -jnp.ones((C_BLOCK, 3, 50), jnp.float32)
+        cand = -jnp.ones((BLOCK_C, 3, 50), jnp.float32)
         w = jnp.eye(50)[None]
         ref = np.asarray(bilinear_maxsim_scores_reference(q, cand, w))
         assert ref[0, 0] < 0
@@ -78,270 +80,70 @@ class TestInt8Scores:
         np.testing.assert_allclose(out, ref, atol=0.05 * abs(ref).max())
 
     def test_mask_out_candidates(self):
-        q, cand, w = self._setup(nq=1, c=C_BLOCK)
+        q, cand, w = self._setup(nq=1, c=BLOCK_C)
         qw, qs = project_queries_int8(q, w)
         pool, aux = pack_candidate_pool_int8(cand)
-        aux = mask_out_candidates_int8(aux, C_BLOCK - 8)
+        aux = mask_out_candidates_int8(aux, BLOCK_C - 8)
         out = np.asarray(bilinear_maxsim_scores_int8(qw, qs, pool, aux,
                                                      interpret=True))
         # fully masked candidates sink far below any real score
-        assert out[0, -8:].max() < out[0, : C_BLOCK - 8].min()
-
-
-class TestInt4Scores:
-    """int4 variant: same kernel body, +-7 grid (first-stage shortlist
-    dtype; see docs/PERF.md)."""
-
-    def _setup(self, nq=3, c=2 * C_BLOCK, w1=5, w2=7, d=50, m=2):
-        q = jnp.asarray(rng.normal(size=(nq, w1, d)).astype(np.float32))
-        cand = jnp.asarray(rng.normal(size=(c, w2, d)).astype(np.float32))
-        w = jnp.asarray(rng.normal(size=(m, d, d)).astype(np.float32) * 0.1)
-        return q, cand, w
-
-    def test_exact_on_dequantized_inputs(self):
-        """Kernel vs reference computed on the DEQUANTIZED tokens: isolates
-        the kernel math (max/sum/scales/padding) from quantization error."""
-        from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            bilinear_maxsim_scores_int4, pack_candidate_pool_int4,
-            project_queries_int4)
-        q, cand, w = self._setup()
-        qw, qs = project_queries_int4(q, w)
-        pool, aux = pack_candidate_pool_int4(cand)
-        out = np.asarray(bilinear_maxsim_scores_int4(qw, qs, pool, aux,
-                                                     interpret=True))
-        # dequantized reference: max_j over (deq qw_row . deq cand_tok);
-        # the kernel carries scales as bf16, so round them the same way
-        qs_b = np.asarray(qs.astype(jnp.bfloat16), np.float32)
-        qw_f = np.asarray(qw, np.float32) * qs_b.reshape(
-            qs.shape[0], qs.shape[1], 1)
-        pool_f = np.asarray(pool, np.float32) \
-            * np.asarray(aux[:, 0], np.float32)[:, None, None]
-        sims = np.einsum("qrd,cjd->qrcj", qw_f, pool_f)
-        ref = sims.max(-1).sum(1)
-        np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3)
-
-    def test_close_to_f32_reference(self):
-        from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            bilinear_maxsim_scores_int4, pack_candidate_pool_int4,
-            project_queries_int4)
-        q, cand, w = self._setup()
-        ref = np.asarray(bilinear_maxsim_scores_reference(q, cand, w))
-        qw, qs = project_queries_int4(q, w)
-        pool, aux = pack_candidate_pool_int4(cand)
-        out = np.asarray(bilinear_maxsim_scores_int4(qw, qs, pool, aux,
-                                                     interpret=True))
-        scale = np.abs(ref).max()
-        np.testing.assert_allclose(out, ref, atol=0.30 * scale)  # 4-bit grid
-
-    def test_topk_recall_vs_f32(self):
-        from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            bilinear_maxsim_scores_int4, pack_candidate_pool_int4,
-            project_queries_int4)
-        q, cand, w = self._setup(nq=4, c=4 * C_BLOCK)
-        ref = np.asarray(bilinear_maxsim_scores_reference(q, cand, w))
-        qw, qs = project_queries_int4(q, w)
-        pool, aux = pack_candidate_pool_int4(cand)
-        out = np.asarray(bilinear_maxsim_scores_int4(qw, qs, pool, aux,
-                                                     interpret=True))
-        k = 10
-        for qi in range(4):
-            top_ref = set(np.argsort(-ref[qi])[:k])
-            top_i4 = set(np.argsort(-out[qi])[:k])
-            assert len(top_ref & top_i4) >= k - 4  # >= 60% at 4 bits
-
-    def test_mask_out_candidates(self):
-        from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            bilinear_maxsim_scores_int4, mask_out_candidates_int4,
-            pack_candidate_pool_int4, project_queries_int4)
-        q, cand, w = self._setup(nq=1, c=C_BLOCK)
-        qw, qs = project_queries_int4(q, w)
-        pool, aux = pack_candidate_pool_int4(cand)
-        aux = mask_out_candidates_int4(aux, C_BLOCK - 8)
-        out = np.asarray(bilinear_maxsim_scores_int4(qw, qs, pool, aux,
-                                                     interpret=True))
-        assert out[0, -8:].max() < out[0, : C_BLOCK - 8].min()
+        assert out[0, -8:].max() < out[0, : BLOCK_C - 8].min()
 
 
 class TestTileValidation:
-    """Non-dividing tile sizes must raise, not silently skip candidates
-    (a c_sub of 80 against c_block 128 once benched 49% 'faster' by
-    leaving 48 of every 128 output rows unwritten)."""
+    """Tile parameters the kernel cannot launch with must raise, not
+    silently skip candidates or queries."""
 
-    def test_bad_c_sub_rejected(self):
+    def test_width_off_the_k_step_rejected(self):
+        """A hand-built pool whose padded width is not a multiple of the
+        tensor-core K step cannot launch; the packers never build one."""
         q = jnp.ones((1, 2, 50), jnp.float32)
-        cand = jnp.ones((C_BLOCK, 3, 50), jnp.float32)
         w = jnp.eye(50)[None]
-        qw, qs = project_queries_int8(q, w)
-        pool, aux = pack_candidate_pool_int8(cand)
-        with np.testing.assert_raises(ValueError):
-            bilinear_maxsim_scores_int8(qw, qs, pool, aux, c_sub=80,
-                                        interpret=True)
-        from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            pack_candidate_pool, project_queries, bilinear_maxsim_scores)
-        qwf = project_queries(q, w)
-        poolf = pack_candidate_pool(cand)
-        with np.testing.assert_raises(ValueError):
-            bilinear_maxsim_scores(qwf, poolf, c_sub=80, interpret=True)
+        qw = project_queries(q, w)[:, :, :56]
+        pool = pack_candidate_pool(jnp.ones((BLOCK_C, 3, 50)))[:, :, :56]
+        with pytest.raises(ValueError, match="K step"):
+            bilinear_maxsim_scores(qw, pool, interpret=True)
 
-    def test_bad_q_sub_rejected(self):
-        q = jnp.ones((32, 2, 50), jnp.float32)
-        cand = jnp.ones((C_BLOCK, 3, 50), jnp.float32)
+    def test_pool_not_multiple_of_16_rejected(self):
+        q = jnp.ones((1, 2, 50), jnp.float32)
+        cand = jnp.ones((40, 3, 50), jnp.float32)
         w = jnp.eye(50)[None]
         qw, qs = project_queries_int8(q, w)
         pool, aux = pack_candidate_pool_int8(cand)
-        # interpret=False takes the TPU padding branch (nq_pad -> 128);
-        # the ValueError fires before any pallas lowering happens
-        with np.testing.assert_raises(ValueError):
-            bilinear_maxsim_scores_int8(qw, qs, pool, aux, q_sub=24,
-                                        interpret=False)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            bilinear_maxsim_scores_int8(qw, qs, pool, aux, interpret=True)
+
+    def test_width_mismatch_rejected(self):
+        q = jnp.ones((1, 2, 50), jnp.float32)
+        w = jnp.eye(50)[None]
+        qw, qs = project_queries_int8(q, w)
+        pool, aux = pack_candidate_pool_int8(
+            jnp.ones((BLOCK_C, 3, 70), jnp.float32))
+        with pytest.raises(ValueError, match="width"):
+            bilinear_maxsim_scores_int8(qw, qs, pool, aux, interpret=True)
 
     def test_off_block_pool_shrinks_tile(self):
-        """A 384-candidate pool (a 128- but not 256-multiple) must score
-        correctly via the gcd-style c_block shrink rather than raise --
-        only QueryEngine pads pools to C_BLOCK_BY_MODE multiples; direct
-        callers get the largest fitting tile."""
-        from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            bilinear_maxsim_scores_reference)
+        """A 400-candidate pool is not a BLOCK_C multiple; direct callers
+        get the largest power-of-two tile that divides the pool (here
+        16; QueryEngine pads to BLOCK_C multiples)."""
         q = jnp.asarray(rng.normal(size=(2, 3, 50)).astype(np.float32))
-        cand = jnp.asarray(rng.normal(size=(384, 4, 50)).astype(np.float32))
+        cand = jnp.asarray(rng.normal(size=(400, 4, 50)).astype(np.float32))
         w = jnp.asarray(rng.normal(size=(1, 50, 50)).astype(np.float32) * 0.1)
         ref = np.asarray(bilinear_maxsim_scores_reference(q, cand, w))
         qw, qs = project_queries_int8(q, w)
         pool, aux = pack_candidate_pool_int8(cand)
-        out = np.asarray(bilinear_maxsim_scores_int8(qw, qs, pool, aux,
-                                                     interpret=True))
-        assert out.shape == (2, 384)
+        out = np.asarray(bilinear_maxsim_scores_int8(
+            qw, qs, pool, aux, interpret=True))
+        assert out.shape == (2, 400)
         np.testing.assert_allclose(out, ref, atol=0.05 * np.abs(ref).max())
-
-
-class TestTokmajLayout:
-    """Token-major pool layout (the serving default through QueryEngine):
-    per-group rows ordered token*c_sub+cand so the kernel's token max
-    folds whole contiguous tiles.  Bit-identical scores to candmaj."""
-
-    def _setup(self, nq=3, c=256, w1=5, w2=7, d=50, m=2, seed=7):
-        r = np.random.default_rng(seed)
-        q = jnp.asarray(r.normal(size=(nq, w1, d)).astype(np.float32))
-        cand = jnp.asarray(r.normal(size=(c, w2, d)).astype(np.float32))
-        w = jnp.asarray(r.normal(size=(m, d, d)).astype(np.float32) * 0.1)
-        return q, cand, w
-
-    def test_exact_agreement_with_candmaj(self):
-        q, cand, w = self._setup()
-        qw, qs = project_queries_int8(q, w)
-        p1, a1 = pack_candidate_pool_int8(cand)
-        s1 = np.asarray(bilinear_maxsim_scores_int8(qw, qs, p1, a1,
-                                                    interpret=True))
-        p2, a2 = pack_candidate_pool_int8(cand, layout="tokmaj")
-        s2 = np.asarray(bilinear_maxsim_scores_int8(qw, qs, p2, a2,
-                                                    layout="tokmaj",
-                                                    interpret=True))
-        np.testing.assert_array_equal(s1, s2)
-
-    def test_small_pool_group_shrinks(self):
-        # pool < C_SUB_INT8: the group pins to the whole pool
-        q, cand, w = self._setup(c=64)
-        qw, qs = project_queries_int8(q, w)
-        p1, a1 = pack_candidate_pool_int8(cand)
-        s1 = np.asarray(bilinear_maxsim_scores_int8(qw, qs, p1, a1,
-                                                    interpret=True))
-        p2, a2 = pack_candidate_pool_int8(cand, layout="tokmaj")
-        s2 = np.asarray(bilinear_maxsim_scores_int8(qw, qs, p2, a2,
-                                                    layout="tokmaj",
-                                                    interpret=True))
-        np.testing.assert_array_equal(s1, s2)
-
-    def test_masking_composes(self):
-        # aux-based pool-padding masks are layout-independent
-        q, cand, w = self._setup(c=128)
-        qw, qs = project_queries_int8(q, w)
-        pool, aux = pack_candidate_pool_int8(cand, layout="tokmaj")
-        aux = mask_out_candidates_int8(aux, 100)
-        s = np.asarray(bilinear_maxsim_scores_int8(qw, qs, pool, aux,
-                                                   layout="tokmaj",
-                                                   interpret=True))
-        assert np.all(s[:, 100:] < -1e29)
-        assert np.all(np.isfinite(s[:, :100]))
-
-    def test_indivisible_pool_rejected_at_pack(self):
-        import pytest
-
-        q, cand, w = self._setup(c=192)  # 192 % 128 != 0
-        with pytest.raises(ValueError, match="divisible"):
-            pack_candidate_pool_int8(cand, layout="tokmaj")
-
-    def test_custom_c_sub_rejected(self):
-        import pytest
-
-        q, cand, w = self._setup(c=256)
-        qw, qs = project_queries_int8(q, w)
-        pool, aux = pack_candidate_pool_int8(cand, layout="tokmaj")
-        with pytest.raises(ValueError, match="group"):
-            bilinear_maxsim_scores_int8(qw, qs, pool, aux,
-                                        layout="tokmaj", c_sub=64,
-                                        interpret=True)
-
-    def test_unknown_layout_rejected(self):
-        import pytest
-
-        q, cand, w = self._setup(c=128)
-        qw, qs = project_queries_int8(q, w)
-        with pytest.raises(ValueError, match="layout"):
-            pack_candidate_pool_int8(cand, layout="rowmaj")
-        pool, aux = pack_candidate_pool_int8(cand)
-        with pytest.raises(ValueError, match="layout"):
-            bilinear_maxsim_scores_int8(qw, qs, pool, aux,
-                                        layout="rowmaj", interpret=True)
-
-    def test_int4_tokmaj_agreement(self):
-        # the int4 path shares the kernel; its tokmaj layout must agree
-        # with its candmaj scores the same way
-        from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            bilinear_maxsim_scores_int4, pack_candidate_pool_int4,
-            project_queries_int4)
-
-        q, cand, w = self._setup(c=256)
-        qw, qs = project_queries_int4(q, w)
-        p1, a1 = pack_candidate_pool_int4(cand)
-        s1 = np.asarray(bilinear_maxsim_scores_int4(qw, qs, p1, a1,
-                                                    interpret=True))
-        p2, a2 = pack_candidate_pool_int4(cand, layout="tokmaj")
-        s2 = np.asarray(bilinear_maxsim_scores_int4(qw, qs, p2, a2,
-                                                    layout="tokmaj",
-                                                    interpret=True))
-        np.testing.assert_array_equal(s1, s2)
-
-
-class TestTokmajGuards:
-    def test_sub_group_c_block_rejected(self):
-        """A c_block smaller than the tokmaj pack group would reshape
-        token/candidate indices into each other — must raise, not
-        silently scramble."""
-        from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            C_SUB_INT8, bilinear_maxsim_scores_int8,
-            pack_candidate_pool_int8, project_queries_int8)
-
-        rng = np.random.default_rng(0)
-        c = 2 * C_SUB_INT8
-        cand = jnp.asarray(rng.normal(size=(c, 8, 16)).astype(np.float32))
-        q = jnp.asarray(rng.normal(size=(2, 8, 16)).astype(np.float32))
-        w = jnp.asarray(rng.normal(size=(2, 16, 16)).astype(np.float32))
-        pool, aux = pack_candidate_pool_int8(cand, layout="tokmaj")
-        qw, qs = project_queries_int8(q, w)
-        with pytest.raises(ValueError, match="group"):
-            bilinear_maxsim_scores_int8(qw, qs, pool, aux,
-                                        c_block=C_SUB_INT8 // 2,
-                                        layout="tokmaj", interpret=True)
 
 
 class TestBf16GcdFallback:
     def test_off_block_pool_scores(self):
-        """A 96-candidate bf16 pool (c_block fit 96, default c_sub 64)
-        used to raise; it must shrink the inner chunk like int8 does and
-        agree with the reference scorer."""
+        """A 96-candidate bf16 pool against the default tile runs on
+        32-wide tiles and agrees with the reference scorer."""
         from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            bilinear_maxsim_scores, bilinear_maxsim_scores_reference,
-            pack_candidate_pool, project_queries)
+            bilinear_maxsim_scores_reference)
 
         rng = np.random.default_rng(1)
         cand = jnp.asarray(rng.normal(size=(96, 8, 16)).astype(np.float32))

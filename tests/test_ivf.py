@@ -81,7 +81,7 @@ class TestExactnessContract:
     def test_scan_chunk_storage_gathers_correctly(self):
         # chunk_size < pool forces the stacked (n_chunks, chunk, ...)
         # storage; the IVF flat-gather must reassemble global indices
-        # (chunk_size rounds up to C_BLOCK=128, so 256 gives 2 chunks)
+        # (chunk_size 128 is a BLOCK_C multiple, so 256 gives 2 chunks)
         eng = _engine(pool=256, chunk_size=128)
         assert eng.chunks is not None
         eng.build_ivf(n_clusters=4, seed=0)
@@ -187,16 +187,14 @@ class TestCoarseShortlist:
 
 
 class TestApproxShortlist:
-    """Large-pool coarse shortlists select via the TPU's hardware-tiled
-    ``lax.approx_max_k`` instead of exact ``lax.top_k`` (a full SORT at
-    pool length on TPU — it dominated the on-chip coarse stage at
-    262k/1M).  Gate: shortlist >= 256 AND pool >= 8x shortlist AND
+    """Large-pool coarse shortlists select via ``lax.approx_max_k``
+    instead of exact ``lax.top_k`` (which can be a full sort at pool
+    length).  Gate: shortlist >= 256 AND pool >= 8x shortlist AND
     approx_recall is not None.  The exact kernel rescores the
     shortlist, so per-element recall misses at the shortlist BOUNDARY
-    cannot move the final top-k at the defaults.  The CPU backend's
-    ApproxTopK fallback is exact, so the parity test here pins the
-    plumbing, not the TPU tiling (bench.py's coarse stage covers that
-    on-chip)."""
+    cannot move the final top-k at the defaults.  XLA's CPU and GPU
+    lowerings of ApproxTopK are exact, so the parity test here pins the
+    plumbing."""
 
     def _lower_text(self, eng, shortlist, approx_recall):
         fn = eng.ivf._build_coarse_fn(4, shortlist, approx_recall)
@@ -296,10 +294,10 @@ class TestMultiVectorCoarse:
 
 
 class TestInt8Pool:
-    """IVF over the PRODUCTION int8 token-major pool: the gather
-    rebuilds candidate-major rows from the tokmaj layout
-    (pack_candidate_pool_int8) and scores with the candmaj int8 kernel,
-    so probed scores equal int8 brute force exactly."""
+    """IVF over the PRODUCTION int8 pool: the gather takes candidate rows
+    (and their aux rows) from the candidate-major pool and scores them
+    with the same int8 kernel, so probed scores equal int8 brute force
+    exactly."""
 
     def _int8_engine(self, pool=96, **kw):
         params, _ = mms_qa_init(jax.random.PRNGKey(0), CFG)
@@ -475,14 +473,6 @@ class TestIndexPersistence:
 
 
 class TestValidation:
-    def test_int4_pool_rejected(self):
-        params, _ = mms_qa_init(jax.random.PRNGKey(0), CFG)
-        eng = QueryEngine(params, CFG, pool_dtype="int4", interpret=True)
-        eng.build_index(rng.integers(0, CFG.vocab_size,
-                                     (64, CFG.answer_len)))
-        with pytest.raises(ValueError, match="int4"):
-            IVFIndex(eng)
-
     def test_unbuilt_engine_rejected(self):
         params, _ = mms_qa_init(jax.random.PRNGKey(0), CFG)
         eng = QueryEngine(params, CFG, pool_dtype=jnp.float32,
@@ -567,9 +557,8 @@ class TestTombstones:
 class TestNoCapturedPoolConstants:
     """The IVF query programs must take every large array (pool, aux,
     coarse tables, bucket map) as a jit ARGUMENT: a closed-over device
-    array lowers as an HLO constant, and multi-GB constant programs
-    break remote compile helpers (the round-5 bench's ivf_262k/ivf_1m
-    stages died exactly this way).  Lowered-text size is the guard: a
+    array lowers as an HLO constant, and a multi-GB constant makes a
+    multi-GB program to compile.  Lowered-text size is the guard: a
     captured pool inlines dense<"0x..."> blobs and blows the program up
     by the pool's byte size."""
 

@@ -241,6 +241,26 @@ class TestShardedTrainStep:
         assert prob.shape == (16, 2)
         np.testing.assert_allclose(np.asarray(prob).sum(1), 1.0, rtol=1e-5)
 
+    @pytest.mark.parametrize("rows", [16, 13], ids=["divisible", "ragged"])
+    def test_trainer_eval_any_split_size(self, rows):
+        """A data-parallel Trainer evaluates splits of any size: rows
+        shard over dp when they divide evenly, else replicate; either
+        way the result equals one device's."""
+        from mms_answer_selection_tpu.training import Trainer, TrainerConfig
+        batch = _batch(rows, seed=5)
+        batch["group"] = jnp.asarray(np.arange(rows) // 4, jnp.int32)
+        out = {}
+        for name, mesh in (("one", None), ("dp4", make_mesh(
+                tp=1, devices=jax.devices()[:4]))):
+            tr = Trainer(TINY, TrainerConfig(batch_size=16), mesh=mesh)
+            params, state, _ = tr.init()
+            out[name] = tr._eval_step(params, state, batch)
+        np.testing.assert_allclose(np.asarray(out["dp4"]["prob"]),
+                                   np.asarray(out["one"]["prob"]),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(float(out["dp4"]["map"]),
+                                   float(out["one"]["map"]), rtol=1e-6)
+
 
 class TestGraftEntry:
     def test_entry_compiles(self):

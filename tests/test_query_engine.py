@@ -294,51 +294,30 @@ class TestCaptionImageRetrieval:
             np.testing.assert_array_equal(np.asarray(idx[qi]), expect)
 
 
-class TestInt4Engine:
-    def test_int4_topk_overlaps_f32(self):
-        eng_f, params, state, cand_ids = _engine(n_cand=64)
-        eng_i = QueryEngine(params, CFG, pool_dtype="int4",
-                            interpret=True).build_index(cand_ids)
-        query_ids = rng.integers(0, 64, (3, 6))
-        vf, idx_f = eng_f.query(query_ids, k=5)
-        vi, idx_i = eng_i.query(query_ids, k=5)
-        # 4-bit first-stage shortlist: top-5 overlap >= 3/5 per query
-        for qi in range(3):
-            overlap = len(set(np.asarray(idx_f[qi]).tolist())
-                          & set(np.asarray(idx_i[qi]).tolist()))
-            assert overlap >= 3
-
-    def test_int4_chunked_matches_single(self):
-        eng_1, params, state, cand_ids = _engine(n_cand=512)
-        eng_1 = QueryEngine(params, CFG, pool_dtype="int4",
-                            interpret=True).build_index(cand_ids)
-        eng_c = QueryEngine(params, CFG, pool_dtype="int4", chunk_size=256,
-                            interpret=True).build_index(cand_ids)
-        query_ids = rng.integers(0, 64, (2, 6))
-        v1, i1 = eng_1.query(query_ids, k=7)
-        vc, ic = eng_c.query(query_ids, k=7)
-        np.testing.assert_allclose(np.asarray(v1), np.asarray(vc), rtol=1e-5)
-        np.testing.assert_array_equal(np.asarray(i1), np.asarray(ic))
-
+class TestQuantString:
     def test_unknown_quant_string_rejected(self):
         _, params, state, cand_ids = _engine(n_cand=64)
         with pytest.raises(ValueError):
             QueryEngine(params, CFG, pool_dtype="int2")
 
+    def test_int4_no_longer_accepted(self):
+        _, params, state, cand_ids = _engine(n_cand=64)
+        with pytest.raises(ValueError, match="int8"):
+            QueryEngine(params, CFG, pool_dtype="int4")
+
 
 class TestChunkBlockAlignment:
     def test_odd_chunk_size_rounded_to_mode_block(self):
         """Review regression: an int8 chunk_size that is not a multiple of
-        the mode's c_block must be rounded up at build, not explode at
-        query time."""
+        the kernel's candidate tile must be rounded up at build, not
+        explode at query time."""
         _, params, state, cand_ids = _engine(n_cand=64)
         rng2 = np.random.default_rng(1)
         big = rng2.integers(0, 64, (600, 6)).astype(np.int32)
         eng = QueryEngine(params, CFG, pool_dtype="int8", chunk_size=300,
                           interpret=True).build_index(big)
-        from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            C_BLOCK_BY_MODE)
-        assert eng.chunk_size % C_BLOCK_BY_MODE["int8"] == 0
+        from mms_answer_selection_tpu.ops.sim_cross_pallas import BLOCK_C
+        assert eng.chunk_size % BLOCK_C == 0
         v, i = eng.query(rng2.integers(0, 64, (2, 6)), k=5)
         assert np.isfinite(np.asarray(v)).all()
 

@@ -1,10 +1,10 @@
 """Recipe-scale hermetic accuracy golden (VERDICT round-1 item #2).
 
-The full-size artifact (50k pairs, vocab ~20k, thousands of iterations on
-the real TPU) lives under docs/runs/recipe_scale_v4/ and is produced by
-examples/recipe_scale_rehearsal.py.  This test pins a scaled-down-but-real
-version of the same thing on the CPU mesh: the FULL V4 geometry (40x40,
-4 measures, 32/64-channel blocks) trained for hundreds of steps on the
+The full-size run (50k pairs, vocab ~20k, thousands of iterations on the
+accelerator) is produced by examples/recipe_scale_rehearsal.py.  This test
+pins a scaled-down-but-real version of the same thing on the CPU mesh:
+the FULL V4 geometry (40x40, 4 measures, 32/64-channel blocks) trained
+for hundreds of steps on the
 topic-structured corpus whose overlap features carry no label signal --
 so any MAP rise above the chance floor demonstrates that the
 parity-critical numerics chain (zero-init bilinear metric -> BN
@@ -95,9 +95,8 @@ def test_full_v4_learns_above_chance():
 def test_hard_variant_has_intrinsic_bayes_error():
     """The --hard construction: distractor negatives are built from the
     weak-positive recipe with HIGHER topic density, so a density-optimal
-    ranker must misorder those pairs -- an irreducible error floor (the
-    docs/runs/recipe_scale_v4_hard artifact's claim, checked on the
-    corpus itself)."""
+    ranker must misorder those pairs -- an irreducible error floor,
+    checked on the corpus itself)."""
     from mms_answer_selection_tpu.data.trec_qa import parse_trec_xml
 
     world = synthetic_world(vocab_words=3000, n_topics=60, seed=22)
@@ -126,97 +125,3 @@ def test_hard_variant_has_intrinsic_bayes_error():
     # the discriminative feature ORDERS THE CLASSES BACKWARDS for these
     # subsets: every such distractor outranks every such weak positive
     assert float(np.mean(distract)) > float(np.mean(weak_pos)) + 0.1
-
-
-def test_full_budget_artifact_invariants():
-    """Pins docs/runs/recipe_full_budget/ — the 40,001-iteration recipe
-    budget run on-chip (fused scan + compile cache + snapshot cadence +
-    dual-split evals, early stop disabled so every step of the budget
-    executes; do_trec_qa_clean.py:782-867's loop shape).  Skips until
-    the artifact is produced on real hardware."""
-    import json
-
-    path = os.path.join(os.path.dirname(__file__), "..", "docs", "runs",
-                        "recipe_full_budget", "summary.json")
-    if not os.path.exists(path):
-        import pytest
-
-        pytest.skip("recipe_full_budget artifact not yet produced "
-                    "(needs the TPU)")
-    with open(path) as f:
-        s = json.load(f)
-    assert s["max_iter"] == 40001
-    assert s["early_stop_patience"] == 0      # full budget, no early out
-    assert s["last_eval_step"] >= 40000       # every eval interval ran
-    assert s["backend"] == "tpu"
-    assert s["best_dev_map"] > s["chance_dev_map_step0"] + 0.25
-    assert s["test_map"] > 0.5                # hard-corpus interior level
-    assert s["wall_s"] < 12000                # the budget is tractable
-
-
-def test_wide300_artifact_invariants():
-    """Pins docs/runs/recipe_scale_wide300/ — configs[1]'s shape: the
-    300-d GloVe-style wide encoder (do_trec_qa_clean.py:94-114 loads
-    the word2vec 300-d bin; SURVEY configs[1]) trained at recipe scale
-    on-chip.  Skips until the artifact is produced on real hardware."""
-    import json
-
-    path = os.path.join(os.path.dirname(__file__), "..", "docs", "runs",
-                        "recipe_scale_wide300", "summary.json")
-    if not os.path.exists(path):
-        import pytest
-
-        pytest.skip("recipe_scale_wide300 artifact not yet produced "
-                    "(needs the TPU)")
-    with open(path) as f:
-        s = json.load(f)
-    assert s["model"] == "v4_wide"
-    assert s["embed_dim"] == 300
-    assert s["backend"] == "tpu"
-    assert s["best_dev_map"] > s["chance_dev_map_step0"] + 0.25
-    assert s["test_map"] > 0.6
-
-
-def test_wikiqa_artifact_invariants():
-    """Pins docs/runs/recipe_scale_wikiqa/ — configs[2]'s shape: the
-    WikiQA-format corpus (TSV splits, sparse positives, all-negative
-    questions dropped by prepare_wikiqa) trained at recipe scale
-    on-chip.  Skips until the artifact is produced on real hardware."""
-    import json
-
-    path = os.path.join(os.path.dirname(__file__), "..", "docs", "runs",
-                        "recipe_scale_wikiqa", "summary.json")
-    if not os.path.exists(path):
-        import pytest
-
-        pytest.skip("recipe_scale_wikiqa artifact not yet produced "
-                    "(needs the TPU)")
-    with open(path) as f:
-        s = json.load(f)
-    assert s["format"] == "wikiqa"
-    assert s["backend"] == "tpu"
-    assert s["best_dev_map"] > s["chance_dev_map_step0"] + 0.25
-    assert s["test_map"] > 0.6
-
-
-def test_int8_error_analysis_artifact():
-    """Pins docs/runs/int8_error_analysis/summary.json — the VERDICT
-    round-4 item-6 deliverable: per-pair quantization error vs top-k
-    gap geometry across pool sizes, with the serving-shortlist rule.
-    recall@10-in-top-50 == 1.0 at every measured scale is the contract
-    the rerank path's default shortlist relies on."""
-    import json
-
-    path = os.path.join(os.path.dirname(__file__), "..", "docs", "runs",
-                        "int8_error_analysis", "summary.json")
-    if not os.path.exists(path):
-        import pytest
-
-        pytest.skip("int8_error_analysis artifact not yet produced "
-                    "(needs the TPU)")
-    with open(path) as f:
-        s = json.load(f)
-    for pool in ("pool_262144", "pool_1048576"):
-        assert s[pool]["recall10_in_s"]["50"] == 1.0
-        assert s[pool]["top10_agreement"] > 0.75
-    assert s["guidance"]["S_1m"] <= 512

@@ -155,10 +155,10 @@ class TestFinetune:
 
     def test_copy_matching_sequence_nodes(self):
         """Tuple/list pytree nodes merge element-wise, including the
-        msgpack convention of lists restored as {str(i): v} dicts."""
+        checkpoint convention of sequences loaded as {str(i): v} dicts."""
         tpl = {"stack": (np.zeros(2), np.zeros(3)),
                "hist": [np.zeros(1), np.zeros(1)]}
-        src = {"stack": {"0": np.ones(2), "1": np.ones(9)},  # msgpack dict
+        src = {"stack": {"0": np.ones(2), "1": np.ones(9)},  # loaded dict
                "hist": [np.full(1, 5.0)]}                    # short list
         merged, report = copy_matching(tpl, src)
         assert isinstance(merged["stack"], tuple)

@@ -248,7 +248,7 @@ I0817 14:00:06.200000  71 sgd_solver.cpp:105] Iteration 100, lr = 0.009
             bottom: "ip" top: "loss" }
         }
         """
-        with caplog.at_level(logging.INFO, logger="mms_tpu.graph_solver"):
+        with caplog.at_level(logging.INFO, logger="mms.graph_solver"):
             gs = GraphSolver(solver, base_dir=str(tmp_path))
             gs.step(4)
         train, test = parse_log(caplog.text)

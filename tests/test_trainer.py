@@ -150,7 +150,7 @@ class TestDeterminism:
 class TestWideConfig:
     def test_v4_wide_300d_trains(self):
         # BASELINE configs[1]: 300d embeddings + wider encoder; also covers
-        # the D>127 lane-padding path of the retrieval kernels downstream
+        # the wide-D padding path of the retrieval kernels downstream
         import dataclasses
         from mms_answer_selection_tpu.models.mms_qa import V4_WIDE
         splits, info, _ = _tiny_setup(seed=13)
@@ -168,15 +168,15 @@ class TestWideConfig:
         assert np.isfinite(hist["train_loss"]).all()
 
     def test_kernel_with_300d_vectors(self):
-        # retrieval kernels at D=300 (Dp pads to 384 lanes)
+        # retrieval kernels at D=300 (int8 Dp pads to 320 = 256 + 64)
         import jax.numpy as jnp
         from mms_answer_selection_tpu.ops.sim_cross_pallas import (
-            C_BLOCK, bilinear_maxsim_scores_int8,
+            BLOCK_C, bilinear_maxsim_scores_int8,
             bilinear_maxsim_scores_reference, pack_candidate_pool_int8,
             project_queries_int8)
         r = np.random.default_rng(3)
         q = jnp.asarray(r.normal(size=(2, 5, 300)).astype(np.float32))
-        cand = jnp.asarray(r.normal(size=(C_BLOCK, 7, 300)).astype(np.float32))
+        cand = jnp.asarray(r.normal(size=(BLOCK_C, 7, 300)).astype(np.float32))
         w = jnp.asarray(r.normal(size=(2, 300, 300)).astype(np.float32) * 0.05)
         ref = np.asarray(bilinear_maxsim_scores_reference(q, cand, w))
         qw, qs = project_queries_int8(q, w)
